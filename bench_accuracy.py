@@ -157,9 +157,9 @@ def _child_init(dtype: str, pairhmm: bool = False,
                 assembly: str = "guided", post_refine: bool = False):
     import dataclasses
 
-    import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
     from focalsv_tpu.config import preset
+    from focalsv_tpu.pipeline.device_exec import _ensure_compile_cache
+    _ensure_compile_cache()
     cfg = preset(dtype)
     if pairhmm:
         cfg = cfg.replace(phasing=dataclasses.replace(cfg.phasing,

@@ -3,9 +3,9 @@
 The production scale-out design is one `jax.sharding.Mesh` with a single
 'regions' axis spanning {hosts x chips} (SURVEY.md section 2.3): region
 chunks shard on that axis, the phasing+consensus kernel runs under
-shard_map, and per-region results gather back.  Real multi-chip hardware is
-not reachable from this image, so this harness measures the STRUCTURE of
-the sharded program on the 8-device virtual CPU mesh: a fixed per-device
+shard_map, and per-region results gather back.  This harness measures the
+STRUCTURE of the sharded program on the 8-device virtual CPU mesh (the
+four-GPU path itself is checked by `chip_smoke.py --four`): a fixed per-device
 region batch is dispatched at 1/2/4/8 devices and the per-region cost is
 tracked.
 
@@ -19,11 +19,11 @@ efficiency column therefore normalizes by occupied cores:
 A sharded program with no cross-device serialization, no data-dependent
 gathers, and no growing collective cost keeps cost_per_region flat (100%).
 On real hardware min(N, nproc) = N and the same formula is the standard
-weak-scaling efficiency.  The real-pod entry point is
+weak-scaling efficiency.  The multi-device entry point is
 `bench.py --mesh NxM` (see its --help), which runs the identical dispatch
-path on jax.devices() of a slice.
+path on jax.devices().
 
-Writes one JSON document (default SCALING_r05.json) and prints it.
+Writes one JSON document (default scaling.json) and prints it.
 """
 
 import argparse
@@ -35,7 +35,7 @@ import time
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="SCALING_r05.json")
+    ap.add_argument("--out", default="scaling.json")
     ap.add_argument("--devices", type=int, nargs="*", default=[1, 2, 4, 8])
     ap.add_argument("--per-device", type=int, default=8,
                     help="regions per device (weak scaling)")

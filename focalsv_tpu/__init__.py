@@ -1,10 +1,10 @@
-"""FocalSV-TPU: a TPU-native region-based structural-variant assembly & refinement framework.
+"""FocalSV: an accelerator region-based structural-variant assembly & refinement framework.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of FocalSV
 (reference: maiziezhoulab/FocalSV): prior+read-signal region detection,
 per-region cropping/phasing, local diploid assembly, contig->reference
 alignment, CIGAR->SV extraction/refinement, genotype correction and VCF merge,
-sharded data-parallel over genomic regions on a TPU pod slice.
+sharded data-parallel over genomic regions on the attached GPUs.
 
 Unlike the reference -- a Python orchestration layer shelling out to native
 CPU tools (hifiasm, longshot, minimap2, samtools; see SURVEY.md section 1) --

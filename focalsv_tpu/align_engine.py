@@ -8,9 +8,9 @@ geometry the complex-SV callers consume (reference usage:
 DipPAV_variant_call.py:103 `minimap2 -a -x asm5`, call_DUP_from_contigs.py:114
 `-x asm10`, align_ins2ref.py:64 `map-hifi`).
 
-Gap sub-alignments are independent small banded DPs; on TPU they batch into
-bucketed `banded_align_batch` calls so the whole region batch's gap fills run
-as one compiled kernel per bucket.
+Gap sub-alignments are independent small banded DPs; on the GPU the DP
+batcher (parallel/batch_executor.py) groups them into bucketed
+`banded_align` calls, one kernel launch per bucket batch.
 """
 
 from __future__ import annotations

@@ -8,8 +8,10 @@ works where no compiler exists.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -23,6 +25,18 @@ _lib = None
 _tried = False
 _scan_lib = None
 _scan_tried = False
+_load_lock = threading.RLock()
+
+
+def _serialized(loader):
+    """Loaders build their library on first use.  Threads that call one
+    concurrently wait for that build instead of reading the half-done
+    state and falling back to Python for the rest of the process."""
+    @functools.wraps(loader)
+    def wrapper():
+        with _load_lock:
+            return loader()
+    return wrapper
 
 
 def _build() -> bool:
@@ -36,6 +50,7 @@ def _build() -> bool:
         return False
 
 
+@_serialized
 def get_scan_lib():
     """The native BAM scanner library, or None."""
     global _scan_lib, _scan_tried
@@ -71,6 +86,7 @@ _parse_lib = None
 _parse_tried = False
 
 
+@_serialized
 def get_parse_lib():
     """The native batch BAM record parser library, or None."""
     global _parse_lib, _parse_tried
@@ -498,6 +514,7 @@ def read_sig_arrays(recs, cids, min_mapq: int, min_svlen: int):
     return sig, geom
 
 
+@_serialized
 def get_lib():
     """The loaded native library, or None if unavailable."""
     global _lib, _tried

@@ -123,8 +123,8 @@ int64_t banded_edit_distance(
 // hifiasm, reference ksw2_extz2_sse.c).  Semantics are bit-identical to the
 // JAX kernel ops/align.py::banded_align_batch (same band-by-diagonal layout,
 // same cummax E formulation and tie-breaking), so the caller reuses the same
-// traceback.  Large alignments stay on the TPU kernel; this exists because a
-// ~100-cell-row DP is latency-bound on a remote device link, not FLOP-bound.
+// traceback.  Large alignments go to the device kernel; this exists because a
+// small DP costs less on the host than a device round trip.
 //
 // dirs is (qn x band) uint8, row i-1 holds DP row i.  Returns the global
 // alignment score H[qn][tn] (NEG if the endpoint falls outside the band).

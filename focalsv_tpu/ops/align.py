@@ -2,10 +2,10 @@
 
 Replaces the reference's native DP cores -- hifiasm's ksw2_extz2_sse.c
 (SSE-vectorized extension alignment), minimap2's extension stage, and edlib's
-edit distance (`remove_redundancy.py:57-63`) -- with one batched,
-VPU-vectorized formulation.
+edit distance (`remove_redundancy.py:57-63`) -- with one batched, vectorized
+formulation.
 
-Design (TPU-first): the band is stored by diagonal offset, so each DP row is a
+Design: the band is stored by diagonal offset, so each DP row is a
 fixed-width W vector; the horizontal (gap-in-query) dependency is resolved
 with a *cummax prefix scan* instead of a sequential inner loop, making every
 row update a pure vector op.  Valid when gap_open <= gap_extend <= 0 (opening
@@ -19,8 +19,8 @@ Row recurrence in band coordinates (k indexes diagonal j - i - d_lo):
     E[k]    = cummax_{k'<k}(G[k'] - ext*k') + open + ext*(k-1)  # target gap (D)
     H[k]    = max(G, E)
 
-Direction bits (4 per cell, packed uint8) are streamed to HBM and traced back
-on host to produce BAM CIGAR ops.
+Direction bits (4 per cell, packed uint8) are streamed to device memory and
+traced back on host to produce BAM CIGAR ops.
 """
 
 from __future__ import annotations
@@ -35,8 +35,8 @@ from focalsv_tpu.io import bam as bamio
 
 NEG = -(1 << 28)
 
-# banded DPs up to this many cells run in the native host kernel (dispatch
-# latency to a -- possibly remote -- device exceeds the compute below this)
+# without a DP batcher, banded DPs up to this many cells run in the native
+# host kernel (a one-pair device round trip costs more than their compute)
 NATIVE_DP_MAX_CELLS = 1 << 24
 
 # direction-bit layout
@@ -265,19 +265,24 @@ def traceback(
     return _runlength(ops)
 
 
-PALLAS_MAX_BAND = 2048   # band state is VMEM-resident: (W, 128) i32 x3 plus
-                         # the dirs chunk must fit the ~16 MB scoped limit
+GPU_MAX_BAND = 2048   # widest band the GPU kernel was measured at
+
+
+def use_gpu_kernel(band: int, store_dirs: bool) -> bool:
+    """The Pallas-Triton kernel (ops/align_gpu.py) serves the GPU backend
+    for power-of-two bands up to GPU_MAX_BAND; everything else runs the
+    lax.scan formulation."""
+    return (store_dirs and jax.default_backend() == "gpu"
+            and band & (band - 1) == 0 and band <= GPU_MAX_BAND)
 
 
 def banded_align(q, q_len, t, t_len, d_lo, band=256, store_dirs=True, **scoring):
-    """Backend-dispatching banded DP: the Pallas lane-batched kernel on TPU
-    (ops/align_pallas.py, ~10x the XLA scan version), lax.scan elsewhere
-    (and on TPU for bands too wide for VMEM-resident state)."""
-    if (store_dirs and band % 8 == 0 and band <= PALLAS_MAX_BAND
-            and jax.default_backend() not in ("cpu",)):
-        from focalsv_tpu.ops.align_pallas import banded_align_batch_pallas
-        return banded_align_batch_pallas(q, q_len, t, t_len, d_lo,
-                                         band=band, **scoring)
+    """Backend-dispatching banded DP (see use_gpu_kernel).  Returns
+    (scores (B,), dirs (B, Lq, band) uint8 or None)."""
+    if use_gpu_kernel(band, store_dirs):
+        from focalsv_tpu.ops.align_gpu import banded_align_batch_gpu
+        return banded_align_batch_gpu(q, q_len, t, t_len, d_lo,
+                                      band=band, **scoring)
     return banded_align_batch(q, q_len, t, t_len, d_lo, band=band,
                               store_dirs=store_dirs, **scoring)
 
@@ -285,8 +290,8 @@ def banded_align(q, q_len, t, t_len, d_lo, band=256, store_dirs=True, **scoring)
 def _pad_bucket(x: np.ndarray, lo: int = 64) -> np.ndarray:
     """Pad a 1-D uint8 sequence to the next power-of-FOUR bucket.
 
-    Coarse buckets keep the set of distinct jit shapes tiny -- essential on
-    TPU where each new (Lq, Lt, band) combination is a fresh XLA compile.
+    Coarse buckets keep the set of distinct jit shapes tiny: each new
+    (Lq, Lt, band) combination is a fresh compile.
     """
     n = lo
     while n < len(x):
@@ -302,79 +307,6 @@ def band_bucket(need: int, lo: int = 128) -> int:
     while b < need:
         b *= 4
     return b
-
-
-@functools.partial(jax.jit, static_argnames=("band", "max_rows"))
-def traceback_device(dirs, q_len, t_len, d_lo, band: int, max_rows: int):
-    """On-device traceback: walks the direction bits with a vmapped
-    while_loop and emits the op string (0=M, 1=D, 2=I, 255=end) -- so the
-    large (M, W) dirs arrays never leave the device; only ~(2M) bytes of ops
-    transfer to the host.  Mirrors ops/align.py::traceback exactly."""
-    W = band
-    M = max_rows
-    BUF = 2 * M + W + 8
-
-    def one(d, qn, tn, dlo):
-        ops0 = jnp.full((BUF,), 255, jnp.uint8)
-
-        def cond(c):
-            i, j, state, n, ops = c
-            return ((i > 0) | (j > 0)) & (n < BUF)
-
-        def body(c):
-            i, j, state, n, ops = c
-            k = j - i - dlo
-            in_band = (k >= 0) & (k < W) & (i >= 1)
-            p = jnp.where(in_band,
-                          d[jnp.clip(i - 1, 0, M - 1),
-                            jnp.clip(k, 0, W - 1)].astype(jnp.int32), 0)
-            h2 = p & DIR_H_MASK
-            # faithful casing of the host traceback loop:
-            caseA = i == 0                                   # forced D
-            caseB = (~caseA) & (j == 0)                      # forced I
-            interior = (~caseA) & (~caseB)
-            caseC0 = interior & (state == 0) & (h2 == 0)     # diag -> M
-            caseC1 = interior & (state == 0) & (h2 != 0)     # switch state
-            caseD = interior & (state == 1)                  # D, maybe extend
-            caseE = interior & (state == 2)                  # I, maybe extend
-            emitM = caseC0
-            emitD = caseA | caseD
-            emitI = caseB | caseE
-            code = jnp.where(emitM, 0, jnp.where(emitD, 1, 2)).astype(jnp.uint8)
-            do_emit = emitM | emitD | emitI
-            ops = jnp.where(do_emit, ops.at[jnp.clip(n, 0, BUF - 1)].set(code),
-                            ops)
-            n = n + do_emit.astype(jnp.int32)
-            i = i - (emitM | emitI).astype(jnp.int32)
-            j = j - (emitM | emitD).astype(jnp.int32)
-            state = jnp.where(
-                caseC1, h2,
-                jnp.where(caseD, jnp.where((p & DIR_E_EXT) != 0, 1, 0),
-                          jnp.where(caseE, jnp.where((p & DIR_F_EXT) != 0, 2, 0),
-                                    state)))
-            return (i, j, state, n, ops)
-
-        i0 = qn.astype(jnp.int32)
-        j0 = tn.astype(jnp.int32)
-        out = jax.lax.while_loop(cond, body,
-                                 (i0, j0, jnp.int32(0), jnp.int32(0), ops0))
-        return out[4], out[3]
-
-    return jax.vmap(one)(dirs, q_len, t_len, d_lo)
-
-
-def ops_to_cigar(ops: np.ndarray, n: int) -> list[tuple[int, int]]:
-    """Device op string (reverse order) -> run-length BAM CIGAR."""
-    from focalsv_tpu.io import bam as bamio
-    code_map = {0: bamio.CMATCH, 1: bamio.CDEL, 2: bamio.CINS}
-    out: list[tuple[int, int]] = []
-    for x in ops[:n][::-1]:
-        op = code_map[int(x)]
-        if out and out[-1][0] == op:
-            out[-1] = (op, out[-1][1] + 1)
-        else:
-            out.append((op, 1))
-    return out
 
 
 def banded_align_pair(q, t, band=256, match=2, mismatch=-4, gap_open=-4,
@@ -400,10 +332,10 @@ def banded_align_pair(q, t, band=256, match=2, mismatch=-4, gap_open=-4,
                                     gap_open, gap_extend, d_lo)
         cig = traceback(np.asarray(dirs), len(q), len(t), d_lo)
         return score, cig
-    # host fast path: small DPs are latency-bound on a device round-trip
-    # (remote-TPU dispatch ~10s of ms), not FLOP-bound -- run them in the
-    # native C++ kernel (bit-identical band semantics), exactly the role
-    # ksw2 plays inside minimap2.  Large DPs stay on the TPU kernel.
+    # host fast path: small DPs are latency-bound on a device round-trip,
+    # not FLOP-bound -- run them in the native C++ kernel (bit-identical
+    # band semantics), exactly the role ksw2 plays inside minimap2.  Large
+    # DPs go to the device kernel.
     if len(q) * band <= NATIVE_DP_MAX_CELLS:
         from focalsv_tpu import native
         res = native.affine_banded_align(q, t, d_lo, band, match, mismatch,
@@ -418,15 +350,8 @@ def banded_align_pair(q, t, band=256, match=2, mismatch=-4, gap_open=-4,
         tp[None], np.array([len(t)], np.int32),
         np.array([d_lo], np.int32), band=band, match=match,
         mismatch=mismatch, gap_open=gap_open, gap_extend=gap_extend)
-    if jax.default_backend() not in ("cpu",):
-        # keep the large dirs array on-device; only ~2M bytes of op string
-        # cross the (possibly remote) host link
-        ops_dev, n_dev = traceback_device(
-            dirs, np.array([len(q)], np.int32),
-            np.array([len(t)], np.int32), np.array([d_lo], np.int32),
-            band=band, max_rows=qp.shape[0])
-        return int(scores[0]), ops_to_cigar(np.asarray(ops_dev[0]),
-                                            int(n_dev[0]))
+    # host traceback on the copied dirs (one pair's rows: at most a few
+    # tens of MB over PCIe)
     cig = traceback(np.asarray(dirs[0]), len(q), len(t), d_lo)
     return int(scores[0]), cig
 

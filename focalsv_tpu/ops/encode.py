@@ -48,7 +48,7 @@ def pack_ragged(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Pack variable-length uint8 sequences into a (n, L) tile + length vector.
 
-    L is rounded up to ``pad_to_multiple`` (TPU lane width) and sequences longer
+    L is rounded up to ``pad_to_multiple`` and sequences longer
     than ``max_len`` are truncated.  Returns (tile uint8 (n, L), lengths int32 (n,)).
     """
     if not seqs:

@@ -2,7 +2,7 @@
 
 Replaces the probabilistic heart of Longshot (pair-HMM realignment of reads
 against candidate haplotypes; reference runs `longshot` per region,
-2_phasing/longshot.py:20) with a TPU-friendly formulation: the classic
+2_phasing/longshot.py:20) with an accelerator-friendly formulation: the classic
 3-state (M/I/D) forward algorithm evaluated over *anti-diagonal wavefronts*,
 so every scan step is a fully parallel vector update over the diagonal --
 no within-row sequential dependency (cf. PAPERS.md gpuPairHMM/Endeavor,

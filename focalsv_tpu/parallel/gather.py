@@ -6,14 +6,14 @@ shared out_dir, then `cat | vcf-sort`" (README.md:207-213, focalsv.py:66-70)
 accelerator interconnect: each host serializes its shard's VCF records into
 one flat byte payload plus a per-record length vector, both are
 all_gathered across processes via device collectives
-(`jax.experimental.multihost_utils` -- ICI within a slice, DCN across
-hosts), and host 0 decodes, cross-shard-dedups once, and writes the
-genome-wide VCF.  SURVEY.md section 2.3's TPU-native equivalent.
+(`jax.experimental.multihost_utils`), and host 0 decodes,
+cross-shard-dedups once, and writes the genome-wide VCF.  SURVEY.md
+section 2.3's accelerator equivalent.
 
 Wire format: OFFSET-ENCODED, not fixed-width.  A padded (N, W_max) matrix
 would let one long-ALT INS record (a 50 kb insertion carries its full
 sequence) set the pad width for every record on every host -- an
-O(N * max_len) blow-up over DCN.  Concatenated bytes + lengths keep the
+O(N * max_len) blow-up between hosts.  Concatenated bytes + lengths keep the
 payload at O(total record bytes) like the reference's `cat`
 (focalsv.py:66-70); the only padding is to the largest single HOST's
 totals, so wire bytes stay within process_count * max_host_bytes.

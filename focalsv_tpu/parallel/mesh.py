@@ -2,11 +2,12 @@
 
 FocalSV's only parallelism is embarrassing data-parallelism over genomic
 regions (joblib within a node + one SLURM job per chromosome + `cat|vcf-sort`
-as the all-gather; SURVEY.md section 2.3).  The TPU-native equivalent: one
-`jax.sharding.Mesh` with a single 'regions' axis spanning {hosts x chips};
-fixed-shape region tiles are sharded on that axis, every per-region kernel
-runs under `shard_map`, and fixed-width SV-candidate records come back via
-all_gather (ICI in-slice, DCN across hosts) for host-side VCF assembly.
+as the all-gather; SURVEY.md section 2.3).  The accelerator equivalent: one
+`jax.sharding.Mesh` with a single flat 'regions' axis spanning {hosts x
+cards} -- the cards of a host reach each other all to all (NVLink), so the
+mesh follows the algorithm alone; fixed-shape region tiles are sharded on
+that axis, every per-region kernel runs under `shard_map`, and fixed-width
+SV-candidate records come back via all_gather for host-side VCF assembly.
 """
 
 from __future__ import annotations
@@ -23,8 +24,11 @@ from focalsv_tpu.ops import align as alignops
 DATA_AXIS = "regions"
 
 
-def make_mesh(n_devices: int | None = None) -> Mesh:
-    devs = jax.devices()
+def make_mesh(n_devices: int | None = None, local: bool = False) -> Mesh:
+    """One flat 'regions' axis over the first n_devices devices (all by
+    default); ``local`` keeps to this process's own devices, as a
+    per-process region step in a multi-process run must."""
+    devs = jax.local_devices() if local else jax.devices()
     if n_devices is not None:
         devs = devs[:n_devices]
     return Mesh(np.array(devs), (DATA_AXIS,))

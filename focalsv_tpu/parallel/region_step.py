@@ -17,16 +17,19 @@ region batch in ONE dispatch:
 
 Everything is vmapped over the region axis and shards over the mesh's
 'regions' axis (parallel/mesh.py).  Every threshold comparison is integer
-arithmetic and every ratio is a correctly-rounded f32 division, so the
-device results bit-match the host reference implementations -- the contract
-tests/test_device_pipeline.py enforces.  Ragged work (insertion consensus,
+arithmetic and every ratio is a correctly-rounded f32 quotient (built in
+integer arithmetic, _ratio_f32), so the device results bit-match the host
+reference implementations -- the contract tests/test_device_pipeline.py
+enforces.  Ragged work (insertion consensus,
 phase-block splits, contig stitching) stays host-side in
 pipeline/device_exec.py.
 
-Transfer format (the production link may be a tunneled remote device, so
-bytes-on-the-wire matter): tiles ship as packed 4-bit symbols (pack_nibbles)
-and results come back as ONE flat uint8 buffer per region (flat_layout) with
-the consensus coverage as a packed bitmask.
+Transfer format: tiles ship as packed 4-bit symbols (pack_nibbles) and
+results come back as ONE flat uint8 buffer per region (flat_layout) with the
+consensus coverage as a packed bitmask.  These formulations, like the
+select-based nibble decode, the scatter-free RLE compaction and the BLOCK
+chunk gather below, were chosen for an earlier accelerator; each awaits an
+A/B on the GPU (ROADMAP) and is kept here as it is.
 
 Reference contrast: this step replaces the per-region longshot + hifiasm
 process launches of focalsv/main.py:104-155 with one compiled kernel over a
@@ -57,8 +60,7 @@ def _unpack_nibbles(packed: jax.Array, L: int) -> jax.Array:
     """(..., L/2) split-half packed -> (..., L) uint8 pileup symbols.
 
     The 16-entry inverse table is computed with two selects instead of a
-    table gather (gathers are the slow path on the TPU VPU; _NIB_INV is
-    n<5 -> n, 5 -> DEL_SYM, else NOCOV)."""
+    table gather (_NIB_INV is n<5 -> n, 5 -> DEL_SYM, else NOCOV)."""
     def inv(n):
         return jnp.where(n < 5, n,
                          jnp.where(n == 5, jnp.uint8(DEL_SYM),
@@ -66,6 +68,35 @@ def _unpack_nibbles(packed: jax.Array, L: int) -> jax.Array:
     lo = inv(packed & 0xF)
     hi = inv(packed >> 4)
     return jnp.concatenate([lo, hi], axis=-1)[..., :L]
+
+
+def _ratio_f32(p: jax.Array, q: jax.Array) -> jax.Array:
+    """p / q as a correctly rounded f32, in integer arithmetic only, for
+    int32 0 <= p <= q and 1 <= q < 2^23.
+
+    The site selection compares these balances (max, then lowest column
+    among ties) and must see exactly the host's numpy f32 quotients.  XLA's
+    f32 divide on the GPU is not correctly rounded (chip_smoke.py shows
+    the differing quotients), so the quotient is built by long division:
+    normalise p * 2^s into [q/2, q), take 24 quotient bits in three 8-bit
+    steps, round to nearest on the remainder, and scale by 2^-(24+s)."""
+    p = p.astype(jnp.int32)
+    q = q.astype(jnp.int32)
+    s = jnp.zeros_like(p)
+    for k in range(1, 24):          # p * 2^k < q, without overflow
+        s = s + (p < (q + (1 << k) - 1) >> k).astype(jnp.int32)
+    r = p << jnp.where(p > 0, s, 0)
+    n = jnp.zeros_like(p)
+    for _ in range(3):
+        r = r << 8
+        d = r // q
+        r = r - d * q
+        n = n * 256 + d
+    # round to nearest; an exact half cannot occur (it would need a
+    # dyadic quotient with 25 significant bits, i.e. q >= 2^24)
+    n = n + (2 * r > q).astype(jnp.int32)
+    scale = jax.lax.bitcast_convert_type((103 - s) << 23, jnp.float32)
+    return jnp.where(p > 0, n.astype(jnp.float32) * scale, jnp.float32(0))
 
 
 def _select_sites_strips_dynamic(bal: jax.Array, L_true, S: int):
@@ -247,7 +278,7 @@ def _one_region(
     # bit-identical, with strips over the TRUE region length)
     bal = jnp.where(
         is_het,
-        top1.astype(jnp.float32) / jnp.maximum(n0 + top1, 1).astype(jnp.float32),
+        _ratio_f32(top1, jnp.maximum(n0 + top1, 1)),
         jnp.float32(-1.0))
     site_pos, sel = _select_sites_strips_dynamic(bal, L_true, S)
     # compact selected sites to the front (position order preserved)
@@ -363,8 +394,8 @@ def _flat_parts_rle(res_tuple, ref, ltrue, Drle):
     colv = jnp.arange(L, dtype=i32) < ltrue
 
     def track(k):
-        # scatter-free compaction: TPU scatters serialize, so the runs are
-        # located with cumsum + searchsorted (binary-search gathers) -- the
+        # scatter-free compaction: the runs are located with cumsum +
+        # searchsorted (binary-search gathers) instead of a scatter -- the
         # i-th run starts at the first column whose boundary-cumsum is i+1,
         # and its length is the dev-column count between its start and the
         # next run's start (runs' dev columns are contiguous by definition)
@@ -522,7 +553,7 @@ def _one_region_delta(
     n0 = jnp.max(counts, axis=1)
     bal = jnp.where(
         is_het,
-        top1.astype(jnp.float32) / jnp.maximum(n0 + top1, 1).astype(jnp.float32),
+        _ratio_f32(top1, jnp.maximum(n0 + top1, 1)),
         jnp.float32(-1.0))
     site_pos, sel = _select_sites_strips_dynamic(bal, L_true, S)
     slot0 = jnp.arange(S, dtype=i32)
@@ -822,8 +853,8 @@ def phase_consensus_rows_packed(
     (W ~ read span << L for large regions).  Row starts arrive quantized
     to BLOCK columns (pack_row_tile pre-shifts each row by start % BLOCK),
     so the expansion is a BLOCK-contiguous chunk gather -- ~100x fewer
-    gather indices than the per-element formulation, which ran at only
-    ~35M pileup-cells/s on v5e.  Output: the same flat buffer as
+    gather indices than the per-element formulation.  Output: the same
+    flat buffer as
     phase_consensus_batch_packed."""
     kw = dict(
         max_sites=max_sites, mec_iters=mec_iters,

@@ -4,9 +4,9 @@
         --data_type HIFI [--target_bed regions.bed | -S start -E end] \\
         [--chr_num 21 | --chr_num 0 for all] [--auto --prior_file prior.vcf]
 
-Differences by design: one process drives every region on the attached TPU
-mesh (no per-chromosome SLURM jobs); `--auto` replaces the separate
-0_define_region.py invocation.
+Differences by design: one process drives every region on the attached
+accelerator mesh (no per-chromosome SLURM jobs); `--auto` replaces the
+separate 0_define_region.py invocation.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="focalsv-tpu",
-        description="TPU-native region-based SV assembly & refinement",
+        description="Accelerator region-based SV assembly & refinement",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     p.add_argument("--bam_file", "-bam", required=True)
     p.add_argument("--ref_file", "-r", required=True)
@@ -42,6 +42,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_threads", "-t", type=int, default=8)
     p.add_argument("--execution", choices=["device", "host"], default=None,
                    help="override the region execution mode")
+    p.add_argument("--assembly", choices=["guided", "olc"], default=None,
+                   help="override the local assembly method (olc: de-novo "
+                        "overlap-layout-consensus, whose contigs are "
+                        "aligned with the banded DP)")
     p.add_argument("--device_trace", action="store_true",
                    help="record a JAX profiler trace to out_dir/log/trace "
                         "(view in TensorBoard/Perfetto)")
@@ -56,11 +60,14 @@ def main(argv=None) -> int:
     from focalsv_tpu.config import preset
     from focalsv_tpu.pipeline import main as pipeline_main
 
+    import dataclasses
     cfg = preset(args.data_type)
     if args.execution:
-        import dataclasses
         cfg = cfg.replace(execution=dataclasses.replace(
             cfg.execution, mode=args.execution))
+    if args.assembly:
+        cfg = cfg.replace(assembly=dataclasses.replace(
+            cfg.assembly, method=args.assembly))
     trace_ctx = contextlib.nullcontext()
     if args.device_trace:
         from focalsv_tpu.utils.profiling import device_trace

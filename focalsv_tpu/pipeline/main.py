@@ -105,12 +105,12 @@ class ChromosomeResult:
 
 
 def _dp_batching_enabled(cfg: PipelineConfig) -> bool:
-    """Cross-thread DP batching: explicit flag wins, else on for accelerator
-    backends (on CPU the native host kernel beats a fake device round-trip)."""
+    """Cross-thread DP batching: explicit flag wins, else on for the GPU
+    backend (on CPU the native host kernel beats a fake device round-trip)."""
     if cfg.execution.dp_batching is not None:
         return cfg.execution.dp_batching
     import jax
-    return jax.default_backend() not in ("cpu",)
+    return jax.default_backend() == "gpu"
 
 
 def _run_regions_device(bam, fasta, chrom, regions, cfg, out_dir, chrom_len,
@@ -156,28 +156,38 @@ def _run_regions_device(bam, fasta, chrom, regions, cfg, out_dir, chrom_len,
 
     mesh = None
     import jax
-    if jax.device_count() > 1:
+    # this process's regions shard over its own devices only: in a
+    # multi-process run the others' devices are not addressable here
+    if jax.local_device_count() > 1:
         from focalsv_tpu.parallel.mesh import make_mesh
-        mesh = make_mesh()
+        mesh = make_mesh(local=True)
     batch_ctx = contextlib.nullcontext()
     if _dp_batching_enabled(cfg):
         from focalsv_tpu.parallel.batch_executor import dp_batching
         batch_ctx = dp_batching()
     # fully-pipelined streaming: tile builds, device dispatches, decodes and
-    # per-region finishes all overlap (device_exec.streamed_map)
+    # per-region finishes all overlap (device_exec.streamed_map).  A device
+    # fault propagates: there is no silent rerun of the regions on host.
     tile_jobs = [(lambda r=r: fetch_and_tile(r)) for r in regions]
-    with timer.stage("regions_streamed"), batch_ctx, \
+    stats: dict = {}
+    with timer.stage("regions_streamed"), batch_ctx as batcher, \
             ThreadPoolExecutor(max_workers=max(num_workers, 1)) as ex:
-        try:
-            results = dx.streamed_map(ex, tile_jobs, cfg, finish, mesh=mesh)
-        except Exception:
-            logger.exception("device streaming failed; host path for all "
-                             "%d regions", len(regions))
-            results = []
-            for i, r in enumerate(regions):
-                tile = fetch_and_tile(r)
-                results.append(finish(i, tile, None)
-                               if tile is not None else None)
+        results = dx.streamed_map(ex, tile_jobs, cfg, finish, mesh=mesh,
+                                  stats=stats)
+    timer.counters.update(n_chunks=stats["n_chunks"],
+                          n_chunks_delta=stats["n_chunks_delta"],
+                          n_chunks_dense=stats["n_chunks_dense"],
+                          n_host_fallback=stats["n_host_fallback"],
+                          h2d_bytes=stats["h2d_bytes"],
+                          d2h_bytes=stats["d2h_bytes"],
+                          n_slots=stats["n_slots"],
+                          n_devices=mesh.size if mesh is not None else 1)
+    timer.counters.update({f"regions_dev{d}": n for d, n in
+                           enumerate(stats["regions_per_device"])})
+    if batcher is not None:
+        timer.counters.update(dp_device_batches=batcher.n_batches,
+                              dp_device_jobs=batcher.n_jobs,
+                              dp_native_jobs=batcher.n_native)
     return results
 
 
@@ -196,10 +206,13 @@ def process_chromosome(
     Execution modes (cfg.execution.mode):
     - "device" (default): regions bucketized into fixed-shape pileup tiles;
       phasing + consensus run as one compiled device batch per bucket and
-      the aligner's gap DPs batch cross-thread onto the device -- the TPU is
-      the engine of the hot path.
+      the aligner's gap DPs batch cross-thread onto the device.
     - "host": per-region numpy on a thread pool (the reference's
-      joblib.Parallel analog; also the fallback inside device mode).
+      joblib.Parallel analog, and the plain reference for device mode).
+
+    The log's stage_times.json carries the run's counters: regions and
+    failed regions, and in device mode the host-fallback tiles, chunks,
+    transfer bytes and DP jobs on the device and on the host kernel.
     """
     from focalsv_tpu.utils.profiling import StageTimer
     timer = StageTimer()
@@ -254,6 +267,11 @@ def process_chromosome(
         raise RuntimeError(
             f"{chrom}: all {len(failures)} regions failed "
             f"(first: {failures[0]}); see log for tracebacks")
+    if failures:
+        logger.warning("%s: %d of %d regions failed (first: %s)", chrom,
+                       len(failures), len(regions), failures[0])
+    timer.counters.update(n_regions=len(regions),
+                          n_failed_regions=len(failures))
     def _dump_stage_times():
         if out_dir:
             try:
@@ -390,7 +408,7 @@ def run_target_mode(
         final_path = os.path.join(out_dir, "FocalSV_Final_SV.vcf")
         if jax.process_count() == process_count:
             # true jax.distributed run: gather every host's records over
-            # device collectives (ICI/DCN) instead of the filesystem, then
+            # device collectives instead of the filesystem, then
             # dedup ONCE at the gather point -- SVs straddling a shard
             # boundary collapse here (parallel/gather.py)
             from focalsv_tpu.calling.dedup import dedup_records as _dedup

@@ -12,11 +12,13 @@ import jax
 
 
 class StageTimer:
-    """Accumulating per-stage wall-clock timers with JSON summary."""
+    """Accumulating per-stage wall-clock timers with JSON summary, plus the
+    run's named counters (written under "counters")."""
 
     def __init__(self):
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
+        self.counters: dict[str, float] = {}
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -36,7 +38,8 @@ class StageTimer:
 
     def dump(self, path: str):
         with open(path, "w") as f:
-            json.dump(self.summary(), f, indent=2)
+            json.dump(dict(self.summary(), counters=self.counters), f,
+                      indent=2)
 
 
 @contextlib.contextmanager

@@ -103,9 +103,9 @@ def test_ont_large_het_ins_with_clipped_reads():
     ("DEL", 15_000, "0/1"),
 ])
 def test_large_sv_recovery(svtype, length, gt):
-    # SVs needing DP bands wider than the Pallas VMEM cap (ops/align.py
-    # PALLAS_MAX_BAND) must route through the scan kernel and still call
-    # exactly (band-8192 dispatch used to OOM the TPU's scoped VMEM).
+    # SVs needing DP bands wider than the GPU kernel's cap (ops/align.py
+    # GPU_MAX_BAND) must route through the scan kernel and still call
+    # exactly.
     rng = np.random.default_rng(5)
     seq = rng.integers(0, 4, length).astype(np.uint8) if svtype == "INS" else None
     svs = [sim.SimSV(svtype, 25_000 if svtype == "INS" else 20_000,

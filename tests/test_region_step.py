@@ -173,3 +173,24 @@ def test_delta_kernel_matches_dense_kernel():
         d_sym[0] == 254, 5, np.where(d_sym[0] == 255, 15, d_sym[0])) % 16)
     np.testing.assert_array_equal(cov, d_cov[0])
     assert n_sites > 4 and (hp > 0).sum() > 10   # the parity is exercised
+
+
+def test_ratio_f32_is_correctly_rounded_division():
+    """The region step's integer-built quotient equals numpy's IEEE f32
+    division for every count pair it can see (reads per tile <= 1024), and
+    at the edge of its domain."""
+    import jax
+
+    from focalsv_tpu.parallel.region_step import _ratio_f32
+
+    q = np.repeat(np.arange(1, 1100, dtype=np.int32),
+                  np.arange(2, 1101))
+    p = np.concatenate([np.arange(0, n + 1, dtype=np.int32)
+                        for n in range(1, 1100)])
+    big_q = np.array([(1 << 23) - 1] * 4 + [5_000_000, 3], np.int32)
+    big_p = np.array([0, 1, 12345, (1 << 23) - 2, 4_999_999, 3], np.int32)
+    p = np.concatenate([p, big_p])
+    q = np.concatenate([q, big_q])
+    got = np.asarray(jax.jit(_ratio_f32)(p, q))
+    want = p.astype(np.float32) / q.astype(np.float32)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
